@@ -1,6 +1,6 @@
 // Native host-side IO for kiss-tpu.
 //
-// TPU-native counterpart of the reference's C++ ingest/serialization
+// Host counterpart of the reference's C++ ingest/serialization
 // layer (reference: include/utils/io.hpp:6-18 read_sequence,
 // include/biovoltron/file_io/fasta.hpp FastaRecord parsing,
 // include/biovoltron/utility/archive/serializer.hpp raw blob IO,

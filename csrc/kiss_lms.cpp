@@ -2,10 +2,10 @@
 //
 // This is the one reference core algorithm whose work-reduction shape
 // (sort only the ~n/3 LMS suffixes, induce the rest with two bucket
-// scans) cannot be expressed profitably as TPU dataflow: the induced
-// passes are per-position sequential chains and the key extraction is
-// random-index gathers, both priced out on-device (see ROADMAP "LMS +
-// induced sort: definitive no-go on this platform"). The reference runs
+// scans) is not expressed as device dataflow: the induced passes are
+// per-position sequential chains and the key extraction is
+// random-index gathers (an on-device version is not measured on the
+// H100; ROADMAP queue 1 item 9). The reference runs
 // it as host C++ (reference: include/biovoltron/algo/sort/
 // kiss_common.hpp:40-579 get_lms/put_lms_suffix/induced_sort,
 // kiss1_core.hpp:23-145 LMS direct k-ordered sort); here it is likewise

@@ -1,12 +1,12 @@
-"""kiss-tpu: TPU-native k-ordered suffix sorting and FM-indexing.
+"""kiss-tpu: k-ordered suffix sorting and FM-indexing on an accelerator.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of jhhung/kISS
+A from-scratch JAX/XLA re-design of the capabilities of jhhung/kISS
 (k-ordered suffix arrays + k-ordered FM-indexes for genome-scale texts).
 The CPU reference (C++20, OpenMP/TBB/AVX2) expresses its parallelism as
 fork-join threads, per-thread histograms and AVX2 comparator sorts; this
 library re-expresses the same pipeline as packed-integer keys, stable
-`lax.sort` passes, segmented scans and gathers that map onto the TPU's
-VPU/HBM, with `jax.sharding` meshes for multi-chip scale-out.
+`lax.sort` passes, segmented scans and gathers that XLA compiles for the
+device, with `jax.sharding` meshes for multi-device scale-out.
 
 Public API mirrors the reference's user-facing surface:
   - suffix sorting: :mod:`kiss_tpu.ops.suffix_sort`

@@ -43,8 +43,8 @@ def _add_generic(p: argparse.ArgumentParser) -> None:
         type=int,
         default=0,
         metavar="NUM",
-        help="number of threads (accepted for parity; the TPU mesh is "
-        "the parallelism knob)",
+        help="number of threads (accepted for parity; the device mesh "
+        "is the parallelism knob)",
     )
     p.add_argument(
         "--verbose", action="store_true", help="print more information"
@@ -53,7 +53,7 @@ def _add_generic(p: argparse.ArgumentParser) -> None:
         "--profile",
         metavar="DIR",
         help="write a jax.profiler device trace for this command to DIR "
-        "(TPU-native analog of the reference's per-stage spdlog "
+        "(the device analog of the reference's per-stage spdlog "
         "stopwatches)",
     )
 
@@ -100,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
         "batch device sorts): for texts too large for the in-core "
         "pipeline's device buffers (chm13-scale). Auto-selected when "
         "the text exceeds the device-memory-derived in-core capacity "
-        "(~40 B/char vs HBM size x mesh size); this flag forces it.",
+        "(40 B/char vs device memory x mesh size); this flag forces it.",
     )
     ss.add_argument("fasta", help="FASTA/text file path")
 
@@ -159,10 +159,8 @@ def build_parser() -> argparse.ArgumentParser:
         "serve",
         help="long-lived query server: load the index and pay the jit "
         "compile ONCE, then answer patterns from stdin until EOF. "
-        "Mitigates the per-invocation compile latency of fmindex_query "
-        "(~30-60 s of XLA compile per process on TPU; the persistent "
-        "compile cache is unsafe on this backend, see "
-        "kiss_tpu/utils/compile_cache.py). Protocol: one pattern per "
+        "Avoids the per-invocation load and compile latency of "
+        "fmindex_query. Protocol: one pattern per "
         "line (answered like -q); 'batch <file>' runs a -b pattern "
         "file; blank line or 'quit' exits. Prints 'ready' after "
         "warmup and 'ok <seconds>' after each request on stdout.",
@@ -202,49 +200,42 @@ def _reject_generic(args) -> None:
         )
 
 
-# in-core device-buffer cost model: the seed sort's peak is ~40 bytes
-# per character (4 raw key words + fused word + sorted copies + SA/rank
-# -- see ROADMAP memory notes); the routing threshold is DERIVED from
-# the actual device memory so no text that passes the in-core route can
-# exceed the device budget (VERDICT r4 weak-#4: the old hardcoded 500M
-# constant sat above a 16 GB-HBM chip's ~400M-char capacity)
+# in-core device-buffer cost model of suffix_sort, the one command it
+# routes: peak device bytes per character, 37.0 measured with
+# peak_bytes_in_use on an H100 at n = 48.8M, k = 256 (chip_smoke.py),
+# plus a margin; the routing threshold is derived from the device's
+# memory limit so no text that passes the in-core route can exceed the
+# device budget. fmindex_build is not routed by it.
 IN_CORE_BYTES_PER_CHAR = 40
 # safety margin against the cost model (runtime reserves, fragmentation)
 IN_CORE_MEM_FRACTION = 0.9
-# when device memory cannot be queried: conservative constant BELOW the
-# 16 GB-HBM danger line (16e9 * 0.9 / 40 = 360M)
+# the CPU backend reports no memory limit: a fixed capacity for it
 EXTERNAL_THRESHOLD_FALLBACK = 350_000_000
 
 
 def in_core_capacity_chars(device=None) -> int:
     """Largest text (chars) the in-core pipeline should attempt on one
-    device, from ``device.memory_stats()`` when available.
-
-    The fallback assumes a >= 16 GB device; on a smaller-memory backend
-    that exposes no memory stats, set ``KISS_TPU_INCORE_CAP=<chars>``
-    (or pass ``--external``) -- the derivation cannot see what the
-    platform does not report."""
+    device: ``bytes_limit`` from ``device.memory_stats()`` on an
+    accelerator, a fixed constant on the CPU backend.
+    ``KISS_TPU_INCORE_CAP=<chars>`` overrides both."""
     import os
 
     override = os.environ.get("KISS_TPU_INCORE_CAP")
     if override:
         return int(override)
-    try:
-        if device is None:
-            import jax
+    if device is None:
+        import jax
 
-            device = jax.devices()[0]
-        stats = device.memory_stats() or {}
-        limit = stats.get("bytes_limit") or stats.get(
-            "bytes_reservable_limit"
+        device = jax.devices()[0]
+    if device.platform == "cpu":
+        return EXTERNAL_THRESHOLD_FALLBACK
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    if not limit:
+        raise RuntimeError(
+            f"{device.platform} device {device.device_kind!r} reports no "
+            "bytes_limit; set KISS_TPU_INCORE_CAP=<chars> or pass --external"
         )
-        if limit:
-            return int(int(limit) * IN_CORE_MEM_FRACTION) // (
-                IN_CORE_BYTES_PER_CHAR
-            )
-    except Exception:  # backends without memory_stats
-        pass
-    return EXTERNAL_THRESHOLD_FALLBACK
+    return int(int(limit) * IN_CORE_MEM_FRACTION) // IN_CORE_BYTES_PER_CHAR
 
 
 def suffix_sort_main(args) -> None:
@@ -256,12 +247,11 @@ def suffix_sort_main(args) -> None:
 
     # the sharded in-core pipeline splits its buffers over the mesh, so
     # a multi-device -t raises the in-core capacity proportionally
-    # (ADVICE r4: don't auto-route a mesh that can hold the text to the
+    # (a mesh that can hold the text is not auto-routed to the
     # host-staged external sorter). The 1/D per-device scaling is the
-    # design contract of the P(seq)-sharded pipeline (verified for
-    # residency at 1e8 on the virtual mesh, results_chm13_readiness.md)
-    # but unmeasured on real multi-chip HBM -- if a mesh run OOMs,
-    # --external (or KISS_TPU_INCORE_CAP) forces the out-of-core path.
+    # design contract of the P(seq)-sharded pipeline; if a mesh run
+    # runs out of memory, --external (or KISS_TPU_INCORE_CAP) forces
+    # the out-of-core path.
     d = _mesh_size_for(args.num_threads)
     capacity = in_core_capacity_chars() * max(d, 1)
     # LMS_INDUCED is host-resident (~10 B/char of host RAM, no device
@@ -298,7 +288,7 @@ def _build_sharded(fmi: FMIndex, seq: np.ndarray, sort_len, d: int) -> None:
     written `.fmi` is byte-identical to the single-device build
     (tests/test_cli.py::test_cli_num_threads_sharded_build). The product
     wiring of the reference -t knob (src/main.cpp:22-26) for
-    fmindex_build (VERDICT r4 #2)."""
+    fmindex_build."""
     import jax.numpy as jnp
 
     from kiss_tpu.parallel import make_mesh
@@ -380,7 +370,7 @@ def _load_query_engine(args):
     # -t N (N > 1): run the search (and, for full-sort indexes, the
     # locate walk) over an N-device mesh with the index row-sharded --
     # the reference -t knob (src/main.cpp:22-26) as a real multi-chip
-    # query path (VERDICT r4 #2). Results identical to -t 1.
+    # query path. Results identical to -t 1.
     from kiss_tpu.ops.suffix_sort import _mesh_size_for
 
     d = _mesh_size_for(args.num_threads)
@@ -455,13 +445,11 @@ def fmindex_query_main(args) -> None:
 
 
 def serve_main(args, stdin=None, stdout=None) -> None:
-    """Long-lived query loop: the jit compile is paid once per process,
-    so every request after the first runs at steady-state latency
-    (VERDICT r4 #8: fmindex_query pays ~30-60 s of XLA compile PER
-    INVOCATION because the persistent compile cache is unsafe on this
-    backend -- kiss_tpu/utils/compile_cache.py has the hang story; the
-    reference binary has no compile step, README.md:120-137 shows
-    ms-scale queries). ``stdin``/``stdout`` are injectable for tests."""
+    """Long-lived query loop: the index load and jit compile are paid
+    once per process, so every request after the first runs at
+    steady-state latency (the reference binary has no compile step,
+    README.md:120-137 shows ms-scale queries). ``stdin``/``stdout`` are
+    injectable for tests."""
     _reject_generic(args)
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout

@@ -4,7 +4,7 @@ The in-core pipeline (:mod:`kiss_tpu.ops.suffix_sort`) materializes every
 sort operand for all n+1 suffixes at once; at chm13 scale
 (n = 3,117,292,070 -- the reference's headline corpus,
 reference: README.md:94-101) the seed sort alone needs ~125 GB of sort
-buffers, beyond both one TPU's HBM and this host's RAM headroom. This
+buffers, beyond one card's device memory. This
 module runs the SAME ordering contract (k-ordered, shorter-first at end
 of text, position tiebreak -- reference: kiss1_core.hpp:94-135) as a
 host-staged external algorithm:

@@ -6,8 +6,9 @@ only the ~n/3 LMS suffixes by their first k characters, then induce
 every L- and S-type suffix with two bucket-cursor scans (reference:
 include/biovoltron/algo/sort/kiss_common.hpp:40-579,
 kiss1_core.hpp:23-145) -- is host-shaped: sequential scans with
-data-dependent cursors, priced out as TPU dataflow (ROADMAP closure
-note). Like the reference, it therefore runs as native C++
+data-dependent cursors, not expressed as device dataflow (an induced
+sort on the card is not measured on the H100, ROADMAP queue 1 item 9).
+Like the reference, it therefore runs as native C++
 (csrc/kiss_lms.cpp, written from the classic SA-IS induction scheme),
 sitting beside the on-device PARALLEL_SORTING / PREFIX_DOUBLING
 strategies. ``-t`` maps to OpenMP threads for the LMS sort stage.

@@ -1,4 +1,4 @@
-"""k-ordered suffix array construction, TPU-native.
+"""k-ordered suffix array construction on the accelerator.
 
 The reference builds k-ordered suffix arrays with two CPU strategies:
 kISS-1 "PARALLEL_SORTING" (per-bucket AVX2 comparison sorts of LMS
@@ -7,17 +7,17 @@ include/biovoltron/algo/sort/kiss1_core.hpp) and kISS-2 "PREFIX_DOUBLING"
 (super-character encoding + rank doubling with segment sorts/merges,
 reference: include/biovoltron/algo/sort/kiss2_core.hpp). Both are built
 from CPU idioms -- pointer-chasing induced scans, per-thread bucket
-cursors, comparison sorts -- that do not map to a TPU.
+cursors, comparison sorts -- that do not map to whole-array device
+programs.
 
 This module re-expresses the same *problem* (sort every suffix by its
 first k characters, ties broken by text position, sentinel/empty suffix
 first -- reference semantics: kiss1_core.hpp:94-135 comparator, ties at
->= k chars resolved by ``i < j``) in a TPU-native dataflow built almost
-entirely from whole-array sorts and shifted slices -- NO random gathers
-or scatters. Measured on TPU (48.8M elements): one extra u32 sort
-operand costs ~73ms, a random gather runs at ~66M elem/s (3-10x a sort
-pass), so the design minimizes SORT OPERANDS and avoids gathers
-entirely:
+>= k chars resolved by ``i < j``) in a device dataflow built almost
+entirely from whole-array sorts and shifted slices -- no random gathers
+or scatters on the bounded-k path. The design minimizes SORT OPERANDS
+and avoids gathers (how XLA:GPU prices one against the other is not
+measured on the H100 yet; ROADMAP queue 1 items 2-3):
 
   1. Seed: pack the first 32 characters of every suffix into raw 2-bit
      words (16 chars per uint32) plus one word fusing the clamped
@@ -28,7 +28,7 @@ entirely:
      still falls out.
   2. Rank: group heads by compare-adjacent + ``cummax`` segmented scan;
      the position-major rank array is rebuilt by sorting (sa, rank) by
-     sa (a 2-operand sort beats XLA's random scatter at this scale).
+     sa (a 2-operand sort in place of a random scatter).
   3. Rank-block sort: because every rank key covers the SAME block
      length L, lexicographic order of (rank_L[p], rank_L[p+L],
      rank_L[p+2L], ...) IS the order of the concatenated blocks -- and
@@ -75,8 +75,7 @@ def _seed_max(alphabet: pack.Alphabet) -> int:
     the 2-bit fast path (16 chars/word; end-of-text + position fused into
     ONE extra word by :func:`pack.fused_end_pos`), so 64 chars cost 5
     sort operands -- fewer total sorted words than a 32-char seed plus a
-    wider rank-block round (sort cost on TPU scales with operand count:
-    see ROADMAP "Measured platform facts")."""
+    wider rank-block round."""
     if alphabet is pack.DNA:
         return SEED_WORDS * 16
     return SEED_WORDS * alphabet.chars_per_word
@@ -214,8 +213,7 @@ def _pack_fields(fields):
 
     This is the operand-compression step that lets one unstable
     ``lax.sort`` carry e.g. eight 26-bit rank keys plus a position in 8
-    words instead of 9 stable operands: sort cost on TPU scales with
-    operand count, not key bits. Returns (words, placements).
+    words instead of 9 stable operands. Returns (words, placements).
     """
     placements, n_words = _field_layout([(b, a) for _, b, a in fields])
     n = fields[0][0].shape[0]
@@ -278,7 +276,7 @@ def _rank_by_position(sa: jnp.ndarray, rank_sorted: jnp.ndarray,
                       sort_impl=lax.sort):
     """Invert the sorted-order rank to position-major by sorting
     (sa, rank) by sa: for a permutation this equals the scatter
-    rank[sa] = rank_sorted but avoids XLA's slow random scatter."""
+    rank[sa] = rank_sorted, without issuing one."""
     _, rank = sort_impl((sa, rank_sorted), num_keys=1, is_stable=False)
     return rank
 
@@ -297,7 +295,9 @@ def _ranks_of_sorted(sorted_keys, sa, sort_impl=lax.sort):
     N = sa.shape[0]
     pos = jnp.arange(N, dtype=sa.dtype)
     neq = _neq_adjacent(sorted_keys)
-    head = lax.cummax(jnp.where(neq, pos, jnp.zeros((), sa.dtype)))
+    # a sharded sort facade brings the scan that matches its sharding
+    cummax = getattr(sort_impl, "cummax", lax.cummax)
+    head = cummax(jnp.where(neq, pos, jnp.zeros((), sa.dtype)))
     rank = _rank_by_position(sa, head + 1, sort_impl)
     nxt = jnp.concatenate([neq[1:], jnp.ones(1, bool)])
     done = jnp.all(neq & nxt)
@@ -570,7 +570,7 @@ def _run_plan(text, plan: _SortPlan, alphabet, *, jittable: bool,
     INSIDE each ``lax.cond`` branch so no tracer crosses a trace
     boundary), and return ``(sa, flag)``. This is how the sample-sort
     facade surfaces its poison-on-overflow contract at the API boundary
-    instead of handing callers a poisoned permutation (VERDICT r4)."""
+    instead of handing callers a poisoned permutation."""
     nrounds = len(plan.rounds)
     pdt = _pos_dtype(text.shape[0], force_u32)
     if collect_flag:
@@ -771,7 +771,7 @@ def _normalize_k(k) -> int | None:
 
 
 def _mesh_size_for(num_threads) -> int:
-    """Map the reference's thread knob onto the TPU parallelism knob
+    """Map the reference's thread knob onto the device parallelism knob
     (SURVEY.md P9: TBB global_control thread cap -> mesh size): the
     effective device count is min(num_threads, visible devices), so
     reference habits like ``-t 24`` on a single chip degrade gracefully
@@ -793,7 +793,7 @@ class _SorterBase:
     kiss1_sorter.hpp:8-50): static ``get_suffix_array_dna`` /
     ``get_suffix_array`` / ``prepare_aligned_ref``.
 
-    ``num_threads`` maps onto the TPU parallelism knob, the device mesh
+    ``num_threads`` maps onto the device parallelism knob, the mesh
     (reference: src/main.cpp:23-26 caps TBB threads): values above 1
     run the distributed sort over a mesh of min(num_threads, visible
     devices); 0/1/None run the single-device pipeline.
@@ -834,7 +834,7 @@ class _SorterBase:
 class Kiss1Sorter(_SorterBase):
     """PARALLEL_SORTING strategy facade (reference: kiss1_sorter.hpp):
     widest raw-word seed (64 DNA chars in 4 words + the fused end/pos
-    word), then up-to-8-key rank-block rounds -- the TPU re-expression
+    word), then up-to-8-key rank-block rounds -- the device re-expression
     of the reference's bucketed direct sort (kiss1_core.hpp:23-145)."""
 
     strategy = "wide"
@@ -851,8 +851,8 @@ class Kiss2Sorter(_SorterBase):
     Both strategies implement the SAME (stronger-than-reference)
     ordering contract -- exact-k cut, position tiebreaks -- so their
     outputs are bit-identical; they differ in round structure and cost
-    (the wide strategy sorts fewer total words and is the default /
-    faster choice on TPU, mirroring the reference where kISS-1 wins at
+    (the wide strategy sorts fewer total words and is the default,
+    mirroring the reference where kISS-1 wins at
     small k and kISS-2 at k = -1)."""
 
     strategy = "doubling"

@@ -3,14 +3,13 @@
 The reference has NO distributed backend -- it is single-node shared
 memory with a TBB thread cap as its only knob (reference:
 src/main.cpp:22-26; SURVEY.md section 2.5 P9/P10). Scaling beyond one
-host is a new first-class subsystem here: ``jax.distributed`` over
-ICI within a slice and DCN across hosts, with the sequence axis sharded
-across all devices of all hosts.
+host is a new first-class subsystem here: ``jax.distributed`` across
+hosts, with the sequence axis sharded across all devices of all hosts.
 
-Typical pod-slice launch (same program on every host):
+Typical multi-host launch (same program on every host):
 
     from kiss_tpu.parallel import distributed
-    distributed.initialize()            # env-driven on TPU pods
+    distributed.initialize("host0:1234", num_processes=2, process_id=i)
     mesh = distributed.global_mesh()    # 1-D mesh over every device
     sa = sharded_suffix_sort(mesh, text, k)
 
@@ -37,8 +36,9 @@ def initialize(
 ) -> None:
     """Bring up the jax.distributed runtime (idempotent).
 
-    On TPU pods all arguments are discovered from the environment; on
-    CPU/GPU test rigs pass them explicitly.
+    Pass the coordinator address, process count and process id
+    explicitly: nothing in a plain GPU or CPU host's environment
+    supplies them.
     """
     global _initialized
     if _initialized:

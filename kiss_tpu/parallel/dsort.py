@@ -29,9 +29,9 @@ tiebreaker -- the text position -- as the last operand, which makes the
 sort total and position-stable by construction, the same ``i < j`` rule
 as the reference comparator kiss1_core.hpp:131-133).
 
-This is the explicit TPU-native counterpart of SURVEY.md section-2.5
+This is the explicit device counterpart of SURVEY.md section-2.5
 P2/P4: histogram+scatter bucket shuffles and shared-memory merges
-become deterministic block exchanges on the ICI ring, with columnsort's
+become deterministic block exchanges between devices, with columnsort's
 transpose-deal as the promised all_to_all bucket shuffle (SURVEY.md
 section 7 step 5). It composes with the rank-block sorter:
 :func:`make_sharded_sort_impl` returns a drop-in replacement for
@@ -239,11 +239,13 @@ def make_sharded_sort_impl(mesh: Mesh, axis: str, algorithm: str = "auto"):
             body = _block_bitonic
         if n_pad != n:
             # pads carry maximal keys so they sort to the global end
-            padded = []
-            for x in operands:
-                fill = jnp.full(n_pad - n, _MAXVALS[x.dtype], x.dtype)
-                padded.append(jnp.concatenate([x, fill]))
-            operands = tuple(padded)
+            # (a pad, not a concatenation: GSPMD keeps a padded operand
+            # sharded, where it gathers a concatenated one whole onto
+            # every device)
+            operands = tuple(
+                jnp.pad(x, (0, n_pad - n), constant_values=_MAXVALS[x.dtype])
+                for x in operands
+            )
 
         out_specs = tuple(P(axis) for _ in operands)
         if with_flag:
@@ -264,6 +266,29 @@ def make_sharded_sort_impl(mesh: Mesh, axis: str, algorithm: str = "auto"):
         if n_pad != n:
             out = tuple(x[:n] for x in out)
         return out
+
+    def cummax(x):
+        """Running maximum of a 1-D array, sharded like the sorts: a
+        local cummax per block, raised by the maximum of the blocks
+        before it. (GSPMD partitions a global ``lax.cummax`` into a
+        reduce_window over the whole gathered array on every device,
+        quadratic in its length.)"""
+        n = x.shape[0]
+        n_pad = _block_multiple(n, n_devices)
+        lowest = jnp.iinfo(x.dtype).min
+
+        def body(block):
+            local = lax.cummax(block)
+            tops = lax.all_gather(local[-1], axis)
+            before = jnp.arange(n_devices) < lax.axis_index(axis)
+            return jnp.maximum(local, jnp.max(jnp.where(before, tops, lowest)))
+
+        out = jax.shard_map(
+            body, mesh=mesh, in_specs=P(axis), out_specs=P(axis)
+        )(jnp.pad(x, (0, n_pad - n)))
+        return out[:n]
+
+    sharded_sort.cummax = cummax
 
     def reset_flag():
         flag_state["flag"] = False
@@ -291,10 +316,14 @@ def sharded_k_ordered_suffix_array(mesh: Mesh, text, k, axis: str = "seq",
     network (columnsort by default, see :func:`make_sharded_sort_impl`).
 
     Bit-identical to the single-device sorter (tests/test_sharded.py).
-    With ``algorithm="sample"`` the pipeline's accumulated overflow
-    flag is synced on the host and :class:`SampleSortOverflow` is
-    raised when any sort poisoned -- an all-max permutation is never
-    returned (VERDICT r4 weak-#2).
+    Columnsort and bitonic run the rounds from the host, as the
+    single-device sorter does: the seed and each round shape compile
+    once (an unbounded sort reuses one traced-cover round program) and
+    the loop stops at the first all-singleton round.
+    With ``algorithm="sample"`` the whole plan is one jitted program so
+    that the pipeline's accumulated overflow flag can be returned; it
+    is synced on the host and :class:`SampleSortOverflow` is raised
+    when any sort poisoned -- an all-max permutation is never returned.
     """
     from kiss_tpu.ops import pack, suffix_sort
 
@@ -305,24 +334,25 @@ def sharded_k_ordered_suffix_array(mesh: Mesh, text, k, axis: str = "seq",
         seed_chars, max_keys,
     )
     with_flag = hasattr(sort_impl, "take_flag")
+    if not with_flag:
+        return suffix_sort._run_plan(
+            text, plan, pack.DNA, jittable=False, sort_impl=sort_impl
+        )
 
     key = (mesh, axis, algorithm, plan)
     run = _IMPL_CACHE.get(key)
     if run is None:
         # no forced in/out shardings: N = n+1 is generally not divisible
-        # by the mesh; the block-bitonic sort pads and shards internally
+        # by the mesh; the sort facade pads and shards internally
         run = jax.jit(
             lambda t: suffix_sort._run_plan(
                 t, plan, pack.DNA, jittable=True, sort_impl=sort_impl,
-                collect_flag=with_flag,
+                collect_flag=True,
             )
         )
         _IMPL_CACHE[key] = run
 
-    out = run(text)
-    if with_flag:
-        sa, flag = out
-        if bool(flag):
-            raise SampleSortOverflow(SampleSortOverflow.__doc__)
-        return sa
-    return out
+    sa, flag = run(text)
+    if bool(flag):
+        raise SampleSortOverflow(SampleSortOverflow.__doc__)
+    return sa

@@ -20,8 +20,8 @@ NEVER device-resident here -- occ2 alone is ~3.1 GB at chm13 and is
 fully redundant with lf_tab (see :func:`shard_fm_arrays`).
 
 Cost model: an LF step is one psum of a 5-lane Q-sized row block over
-ICI (~us-scale) instead of a local gather -- latency-bound, so
-throughput still scales with the query batch; memory per chip scales
+the interconnect instead of a local gather -- latency-bound, so
+throughput still scales with the query batch; memory per device scales
 1/D.
 """
 
@@ -47,8 +47,8 @@ class ShardedFMQuery:
     ``batch_query_stats``): this is the product wiring of the
     reference's ``-t`` knob (reference: src/main.cpp:22-26 caps the TBB
     thread pool; here the knob is the device mesh) onto the row-sharded
-    index, so ``fmindex_query -t N`` actually uses N chips
-    (VERDICT r4 #2). Results are identical to the single-device
+    index, so ``fmindex_query -t N`` actually uses N devices. Results
+    are identical to the single-device
     :class:`kiss_tpu.models.fm_index.FMIndex` paths
     (tests/test_cli.py::test_cli_num_threads_sharded_query).
 

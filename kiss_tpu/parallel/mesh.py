@@ -1,7 +1,7 @@
 """Multi-chip execution over a jax.sharding.Mesh.
 
 The reference is single-process shared-memory OpenMP (SURVEY.md section
-2.5): its only parallelism knob is a thread count. The TPU-native
+2.5): its only parallelism knob is a thread count. The device
 equivalent is a 1-D device mesh over the *sequence axis* -- the text, the
 suffix array, the rank arrays and the BWT/occ tables are all length-N
 arrays, so the sequence axis IS the parallel axis:
@@ -9,13 +9,13 @@ arrays, so the sequence axis IS the parallel axis:
   - key extraction is shard-local up to a halo of O(seed_chars)
     characters at shard edges (GSPMD inserts the collective-permute);
   - per-shard histogram/count phases become psum-style reductions;
-  - the global stable sorts are partitioned by XLA's SPMD sort;
+  - the global sorts run on the explicit distributed sort networks of
+    :mod:`kiss_tpu.parallel.dsort` (columnsort, sample sort,
+    block-bitonic);
   - batch queries are embarrassingly data-parallel over the query axis.
 
-Round 1 uses GSPMD sharding propagation over the existing jitted cores
-(annotate in/out shardings, let XLA insert collectives). A bespoke
-sample-sort with all_to_all bucket exchange is the planned fast path for
-pod-scale texts (SURVEY.md section 7, step 5).
+The mesh is 1-D over ``jax.devices()``: it follows the algorithm, not a
+physical topology.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def make_mesh(n_devices: int | None = None, axis: str = SEQ_AXIS) -> Mesh:
 
 def sharded_suffix_sort(mesh: Mesh, text: jnp.ndarray, k: int | None):
     """k-ordered SA with the text sharded over the sequence axis and all
-    global sorts on the explicit block-bitonic ICI network
+    global sorts on the explicit distributed sort network
     (:mod:`kiss_tpu.parallel.dsort`)."""
     from kiss_tpu.parallel import dsort
 

@@ -1,6 +1,6 @@
 """Vectorized DNA <-> integer codec.
 
-TPU-native counterpart of the reference ``Codec``
+Vectorized counterpart of the reference ``Codec``
 (reference: include/biovoltron/utility/istring.hpp:27-126). An "istring"
 here is a numpy ``int8`` array with values 0(A) 1(C) 2(G) 3(T) 4(other),
 instead of a ``std::basic_string<int8_t>``; all conversions are table

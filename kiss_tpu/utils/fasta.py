@@ -1,6 +1,6 @@
 """FASTA / plain-text sequence ingest.
 
-TPU-native counterpart of the reference's stream-based reader
+Bulk counterpart of the reference's stream-based reader
 (reference: include/utils/io.hpp:6-18 ``read_sequence`` and
 include/biovoltron/file_io/fasta.hpp:14-176 ``FastaRecord``): if the input
 starts with '>', every record's sequence lines are concatenated; otherwise

@@ -4,13 +4,16 @@ The reference implements its entire host runtime in C++; here the
 device compute is JAX/XLA, and this module keeps the host-side hot
 paths native: streaming FASTA/FASTQ parsing and bit packing run through
 ``libkiss_io.so`` when available, with pure-numpy fallbacks so the
-package works before/without a toolchain. The library is built lazily
-(one ``make`` invocation, cached).
+package works before/without a toolchain. The library is built from the
+committed sources at first use (one ``make`` per process, under a file
+lock so concurrent processes never race the build).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import logging
 import os
 import subprocess
 import threading
@@ -19,7 +22,8 @@ import numpy as np
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
-_SO = os.path.join(_CSRC, "build", "libkiss_io.so")
+_BUILD = os.path.join(_CSRC, "build")
+_SO = os.path.join(_BUILD, "libkiss_io.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -33,18 +37,7 @@ def _load():
             return _lib
         _tried = True
         if os.path.exists(os.path.join(_CSRC, "Makefile")):
-            # always invoke make: it is a no-op when the library is
-            # current, and it rebuilds a stale .so that predates newer
-            # entry points (e.g. ki_lms_induced_sort)
-            try:
-                subprocess.run(
-                    ["make", "-C", _CSRC, "-s"],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                pass  # fall through: a prebuilt .so may still exist
+            _make()
         if not os.path.exists(_SO):
             return None
         try:
@@ -76,6 +69,28 @@ def _load():
             lib.ki_set_threads.argtypes = [ctypes.c_int]
         _lib = lib
         return _lib
+
+
+def _make() -> None:
+    """Bring the library up to date with ``make`` (a no-op when it is
+    current), holding an exclusive lock on ``build/.lock`` so that
+    concurrent processes build once and the rest wait for it."""
+    try:
+        os.makedirs(_BUILD, exist_ok=True)
+        with open(os.path.join(_BUILD, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(
+                ["make", "-C", _CSRC, "-s"],
+                check=True,
+                capture_output=True,
+                timeout=300,
+            )
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", None) or b""
+        logging.getLogger("kiss_tpu").warning(
+            "native library build failed (%s) %s; using the numpy "
+            "fallbacks", e, detail.decode(errors="replace")[-2000:],
+        )
 
 
 def available() -> bool:

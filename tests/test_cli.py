@@ -40,42 +40,65 @@ def test_suffix_sort_external_flag(fa_path):
 
 def test_in_core_capacity_from_device_memory():
     """Routing threshold derives from device memory; no text under the
-    threshold can exceed the in-core device budget (VERDICT r4 #4)."""
+    threshold can exceed the in-core device budget."""
 
     class Dev:
+        platform = "gpu"
+        device_kind = "fake accelerator"
+
         def __init__(self, stats):
             self._stats = stats
 
         def memory_stats(self):
             return self._stats
 
-    # 16 GB HBM -> ~360M chars, safely below the ~400M danger line
+    # 16 GB of device memory -> 16e9 * 0.9 / IN_CORE_BYTES_PER_CHAR
     cap16 = cli.in_core_capacity_chars(Dev({"bytes_limit": 16_000_000_000}))
-    assert cap16 == int(16_000_000_000 * 0.9) // 40
+    assert cap16 == int(16_000_000_000 * 0.9) // cli.IN_CORE_BYTES_PER_CHAR
     assert cap16 * cli.IN_CORE_BYTES_PER_CHAR <= 16_000_000_000 * 0.9
-    # 32 GB doubles the capacity
+    # twice the memory, twice the capacity (up to the integer division)
     cap32 = cli.in_core_capacity_chars(Dev({"bytes_limit": 32_000_000_000}))
-    assert cap32 == 2 * cap16
-    # no stats (CPU backends, exotic plugins) -> conservative fallback
-    assert (
-        cli.in_core_capacity_chars(Dev(None))
-        == cli.EXTERNAL_THRESHOLD_FALLBACK
-    )
-    assert (
-        cli.in_core_capacity_chars(Dev({}))
-        == cli.EXTERNAL_THRESHOLD_FALLBACK
-    )
+    assert cap32 == int(32_000_000_000 * 0.9) // cli.IN_CORE_BYTES_PER_CHAR
+    assert cap32 // 2 == cap16
 
-    class Broken:
+
+class _CpuDev:
+    platform = "cpu"
+    device_kind = "cpu"
+
+    def memory_stats(self):
+        raise AssertionError("the CPU capacity is a constant")
+
+
+def test_in_core_capacity_cpu_fallback():
+    """The CPU backend reports no memory limit: the fixed constant."""
+    assert (
+        cli.in_core_capacity_chars(_CpuDev())
+        == cli.EXTERNAL_THRESHOLD_FALLBACK
+    )
+    assert cli.in_core_capacity_chars() == cli.EXTERNAL_THRESHOLD_FALLBACK
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 1}])
+def test_in_core_capacity_accelerator_without_limit_raises(stats):
+    """An accelerator that reports no bytes_limit is an error, not a
+    guess: routing a text in-core on a made-up budget can run the card
+    out of memory."""
+
+    class Gpu:
+        platform = "gpu"
+        device_kind = "fake GPU"
+
         def memory_stats(self):
-            raise RuntimeError("no stats on this backend")
+            return stats
 
-    assert (
-        cli.in_core_capacity_chars(Broken())
-        == cli.EXTERNAL_THRESHOLD_FALLBACK
-    )
-    # the fallback itself sits below a 16 GB chip's derived capacity
-    assert cli.EXTERNAL_THRESHOLD_FALLBACK <= cap16
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        cli.in_core_capacity_chars(Gpu())
+
+
+def test_in_core_capacity_override(monkeypatch):
+    monkeypatch.setenv("KISS_TPU_INCORE_CAP", "1234")
+    assert cli.in_core_capacity_chars(_CpuDev()) == 1234
 
 
 def test_auto_route_logs_and_respects_mesh(tmp_path, monkeypatch, caplog):
@@ -212,8 +235,7 @@ def test_provenance_sidecar_routes_locate(tmp_path, monkeypatch):
     """fmindex_build records full_sa in a `.meta` sidecar and
     fmindex_query routes locate through the fast per-row walk for
     full-sort archives, the BFS for bounded -k builds and sidecar-less
-    (reference-written) archives, and honors --assume-full-sa
-    (VERDICT r3 weak #3)."""
+    (reference-written) archives, and honors --assume-full-sa."""
     import json
     import os
 
@@ -312,8 +334,8 @@ def _stats_from_log(caplog):
 
 def test_cli_num_threads_sharded_build_and_query(tmp_path, caplog):
     """-t N > 1 routes fmindex_build through the sharded mesh build and
-    fmindex_query through the row-sharded mesh search (VERDICT r4 #2:
-    the product commands must be able to use more than one chip).
+    fmindex_query through the row-sharded mesh search (the product
+    commands must be able to use more than one device).
     The -t 8 archive is byte-identical to -t 1, and batch occ/checksum
     match exactly."""
     import logging
@@ -389,8 +411,8 @@ def test_cli_num_threads_sharded_query_bounded_archive(tmp_path, caplog):
 
 def test_serve_mode(tmp_path, caplog, monkeypatch):
     """The serve command loads once and answers many requests from
-    stdin (VERDICT r4 #8: per-invocation jit compile made repeated
-    fmindex_query minutes-scale; serve pays it once). Single patterns,
+    stdin (load and jit compile are paid once, not per invocation).
+    Single patterns,
     a batch file, warmup, and clean shutdown."""
     import io
     import logging

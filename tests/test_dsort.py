@@ -1,5 +1,7 @@
 """Unit tests for the distributed sorts (columnsort + block-bitonic)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,34 @@ def test_matches_lax_sort(impl, n):
     want = jax.lax.sort((key, pos), num_keys=1, is_stable=True)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+@pytest.mark.parametrize("n", [1, 5, 4097])
+def test_cummax_matches_lax(impl, n, dtype):
+    rng = np.random.default_rng(n)
+    x = jnp.asarray(rng.integers(0, 1 << 20, n).astype(dtype))
+    np.testing.assert_array_equal(
+        np.asarray(impl.cummax(x)), np.asarray(jax.lax.cummax(x))
+    )
+
+
+def test_sharded_seed_has_no_global_reduce_window():
+    """The rank scan of a sharded sort stays per block: GSPMD would
+    partition a global cummax into a reduce_window over the gathered
+    array, quadratic in N."""
+    from kiss_tpu.ops import pack, suffix_sort
+
+    impl = _impl(4, "columnsort")
+    text = jnp.zeros(10_001, jnp.int8)
+    hlo = suffix_sort._seed_sort.lower(
+        text, 64, pack.DNA, True, impl, False
+    ).compile().as_text()
+    windows = [
+        int(np.prod([int(s) for s in size.split("x")]))
+        for size in re.findall(r"window=\{size=([\dx]+)", hlo)
+    ]
+    assert windows and max(windows) < 10_001 // 4
 
 
 def test_multikey(impl):

@@ -66,7 +66,7 @@ def test_arbitrary_bounded_k(k):
     """Raw-tail rounds (k not a multiple of the 64-char seed) -- the
     reference supports every bounded k (exact-k comparator cut,
     kiss1_core.hpp:94-135; protocol sweep experiment_a.sh:10-39), so the
-    out-of-core path must too (VERDICT r4 #1)."""
+    out-of-core path must too."""
     unit = oracle.random_dna(11, seed=31)
     text = np.tile(unit, 3000)[:30_000].copy()
     text[18_000:] = oracle.random_dna(12_000, seed=32)

@@ -109,7 +109,7 @@ def test_sharded_build_queries_end_to_end():
 
 
 def test_sharded_build_1e7():
-    """CI-viable scale point (VERDICT r3 #4): an 8-device sharded build
+    """CI-viable scale point: an 8-device sharded build
     at 10^7 chars with force_u32, bit-identical to single-device.
     Together with the 10^7 full-pipeline dryrun (__graft_entry__.
     dryrun_multichip) this keeps the big-N sharded path exercised every
@@ -125,10 +125,9 @@ def test_sharded_build_1e7():
     reason="1e8-char chm13-readiness run; set KISS_BIG_TESTS=1 (minutes)",
 )
 def test_sharded_build_1e8_chm13_readiness():
-    """VERDICT round-2 'done' criterion: an 8-device run at >= 10^8
-    chars with force_u32, bit-identical to single-device, with per-chip
-    byte accounting (the committed results live in
-    experiments/results_chm13_readiness.md)."""
+    """An 8-device run at >= 10^8 chars with force_u32, bit-identical to
+    single-device, with per-device byte accounting (the full report is
+    experiments/chm13_readiness.py)."""
     n = 100_000_000
     text = oracle.random_dna(n, seed=0)
     single, sharded, mesh = _build_both(text, 4, 8, force_u32=True)

@@ -32,6 +32,36 @@ def test_sharded_sort_bit_identical(mesh):
     np.testing.assert_array_equal(sa_sharded, sa_single)
 
 
+@pytest.mark.parametrize("strategy", ["wide", "doubling"])
+def test_sharded_unbounded_reuses_one_round_program(mesh, strategy,
+                                                    monkeypatch):
+    """k = -1 on the mesh runs its rounds from the host: every round
+    calls the one traced-cover round program, which compiles once."""
+    from kiss_tpu.ops import suffix_sort
+    from kiss_tpu.parallel.dsort import sharded_k_ordered_suffix_array
+
+    text = oracle.repeat_heavy_dna(6_000, unit=23, seed=9)
+    full_round = suffix_sort._full_round
+    compiled = full_round._cache_size()
+    calls = []
+
+    def counting(*args):
+        calls.append(args[3])  # n_keys
+        return full_round(*args)
+
+    monkeypatch.setattr(suffix_sort, "_full_round", counting)
+    sa = sharded_k_ordered_suffix_array(
+        mesh, jnp.asarray(text), -1, strategy=strategy
+    )
+    monkeypatch.undo()
+    assert len(calls) >= 2
+    assert full_round._cache_size() - compiled <= 1
+    np.testing.assert_array_equal(
+        np.asarray(sa).astype(np.uint32),
+        k_ordered_suffix_array(text, -1, strategy=strategy),
+    )
+
+
 def test_sharded_query_matches(mesh):
     text = oracle.random_dna(4096, seed=5)
     fmi = fm.FMIndex(sa_intv=4, lookup_len=0).build(text)

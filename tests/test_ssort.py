@@ -112,8 +112,8 @@ def test_sorted_input_now_balanced():
 
 @needs8
 def test_overflow_flag_surfaces_eagerly():
-    """The impl exposes the accumulated overflow flag (VERDICT r4: the
-    poison must be loud at the API boundary, not just deterministic)."""
+    """The impl exposes the accumulated overflow flag (the poison must
+    be loud at the API boundary, not just deterministic)."""
     mesh = make_mesh(8)
     impl = make_sharded_sort_impl(mesh, "seq", algorithm="sample")
     impl.reset_flag()
@@ -161,7 +161,7 @@ def test_pipeline_overflow_raises(monkeypatch):
 @needs8
 def test_sample_sort_int32_row_guard():
     """Global N >= 2**31 must be rejected at entry (sample-sort row
-    accounting is int32; VERDICT r4 weak-#3). eval_shape: no 8 GB
+    accounting is int32). eval_shape: no 8 GB
     allocation needed."""
     mesh = make_mesh(8)
     impl = make_sharded_sort_impl(mesh, "seq", algorithm="sample")

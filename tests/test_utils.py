@@ -80,3 +80,60 @@ def test_save_load_range():
     assert count == 10
     np.testing.assert_array_equal(np.frombuffer(raw, np.uint32), arr)
     assert buf.read() == b""
+
+
+def test_compile_cache_dir_follows_jax_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache; the code sets
+    no other directory."""
+    from kiss_tpu.utils import compile_cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.cache_dir() == str(tmp_path)
+    calls = []
+    monkeypatch.setattr(compile_cache, "_enabled", False)
+    monkeypatch.delenv("KISS_TPU_NO_CACHE", raising=False)
+    import jax
+
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    compile_cache.enable()
+    assert calls == []
+
+
+def test_compile_cache_dir_defaults_to_repo(monkeypatch):
+    """Without the env var the cache sits at the fixed in-repo path (the
+    directory is part of the cache key, so it must not move)."""
+    import os
+
+    import jax
+
+    from kiss_tpu.utils import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert compile_cache.cache_dir() == os.path.join(repo, ".jax_cache")
+    calls = []
+    monkeypatch.setattr(compile_cache, "_enabled", False)
+    monkeypatch.delenv("KISS_TPU_NO_CACHE", raising=False)
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    compile_cache.enable()
+    assert calls == [("jax_compilation_cache_dir",
+                      os.path.join(repo, ".jax_cache"))]
+    # idempotent: a second call changes nothing
+    compile_cache.enable()
+    assert len(calls) == 1
+
+
+def test_compile_cache_off_in_tests(monkeypatch):
+    """KISS_TPU_NO_CACHE (set by conftest.py) keeps the cache off."""
+    import os
+
+    import jax
+
+    from kiss_tpu.utils import compile_cache
+
+    assert os.environ.get("KISS_TPU_NO_CACHE")
+    calls = []
+    monkeypatch.setattr(compile_cache, "_enabled", False)
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    compile_cache.enable()
+    assert calls == []
